@@ -1,4 +1,4 @@
-"""pecaller_tpu — a TPU-native short-read WGS mapping + calling engine.
+"""pecaller_tpu — a JAX short-read WGS mapping + calling engine for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the PEMapper/PECaller pipeline
 (reference: wingolab-org/pecaller, C/pthreads).  The pipeline stages:

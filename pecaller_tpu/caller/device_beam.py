@@ -1,4 +1,4 @@
-"""TPU-native joint-configuration beam — the caller's hard kernel
+"""Device joint-configuration beam — the caller's hard kernel
 (pecaller.c fill_config_probs/clean_config_probs, :2511-2788 and
 :2248-2344) redesigned as a vectorized-over-sites device program.
 

@@ -1,4 +1,4 @@
-"""Device (TPU) genotype-likelihood kernels — the caller's hot inner loop
+"""Device genotype-likelihood kernels — the caller's hot inner loop
 vectorized over (sites, samples, genotypes).
 
 This is the production path for site-throughput benchmarks: a float32
@@ -6,9 +6,8 @@ lgamma-based Dirichlet-multinomial, numerically equivalent to the exact
 native engine (pecall.c fill_sample_like, mirroring pecaller.c:2448-2507)
 up to rounding — the byte-parity pipeline keeps using the native engine.
 
-Sites batch on the mesh's data axis (see parallel/mesh.py); the tensor
-shapes are MXU/VPU friendly: (S, I, 14, 6) contractions over the allele
-axis.
+Sites batch on the mesh's data axis (see parallel/mesh.py); the tensors
+are (S, I, 14, 6), reduced over the allele axis.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Device (TPU) caller screen: the production fast path of `run_caller`.
+"""Device caller screen: the production fast path of `run_caller`.
 
 The reference caller (pecaller.c:1149-1749) runs an exact float64
 joint-configuration beam per site.  On real cohorts the overwhelming
@@ -218,37 +218,24 @@ def _phase0_chunk(reads, ref_int, ctype, *, haploid: bool, indiv: int,
     return codes
 
 
-def _screen_chunk(reads, ref_int, ctype, *, haploid: bool,
-                  ta, tota, a1):
-    """codes (S,) uint8 for one (S, I, 6) uint16 chunk.  Pure jax."""
+def pass1_margins(reads, ref_int, *, haploid: bool, ta, tota, a1):
+    """Pass-1 likelihood margins in f32 (pure jax), (S, I) each:
+    ``margin`` = ref genotype over the best beam-eligible alternate,
+    ``margin_any`` = ref over the best alternate ungated (the indiv >= 4
+    EM-continuation test).  reads (S, I, 6), ref_int (S,)."""
     import jax.numpy as jnp
     from jax import lax
 
     max_gen = NO_ALLELES if haploid else MAX_GEN
-    min_depth = 1 if haploid else 2
-    indiv = reads.shape[1]
-
     r = reads.astype(jnp.int32)                     # (S, I, 6)
     tot = r[..., :5].sum(-1)                        # (S, I) excl. Ins
-    active = tot > min_depth
-
-    # ---- bad-base gates (pecaller.c:1261-1304), exact integer logic ----
-    sum_tot = tot.sum(-1, dtype=jnp.int32)          # (S,) < 2**31 safe
-    cnt8 = (tot >= 8).sum(-1)                       # (S,)
-    CHRY = 2
-    bad = (sum_tot < 8 * indiv) | ((2 * cnt8 < indiv) & (ctype != CHRY))
-
-    # ---- pass-1 likelihood margins (f32) ----
     sc_idx = jnp.clip(jnp.minimum(tot, 100), 10, 100) - 10       # (S, I)
     n_sc, _, G, _ = ta.shape
-    ref_raw = ref_int.astype(jnp.int32)[:, None]    # (S, 1)
     # tables only cover ref in {A,C,G,T}; ambiguity-code references
     # (ref_int >= 4, e.g. IUPAC 'D'/'H' genome chars that land < 6 in
-    # GEN_TO_INT) are forced HARD below so the exact engine decides them
-    ref_b = jnp.minimum(ref_raw, 3)                 # (S, 1)
-    # flat (scale*4+ref) row index + single-axis takes: the
-    # two-index-array form compiled to a scalarizing gather on TPU
-    # (hundreds of seconds to compile, ~750 ms/chunk to run)
+    # GEN_TO_INT) are forced HARD by the caller of this function
+    ref_b = jnp.minimum(ref_int.astype(jnp.int32)[:, None], 3)   # (S, 1)
+    # flat (scale*4+ref) row index + single-axis takes
     flat = sc_idx * 4 + ref_b                       # (S, I)
     ta_d = jnp.asarray(ta.reshape(n_sc * 4, G, 6))
     tota_d = jnp.asarray(tota.reshape(n_sc * 4, G))
@@ -276,17 +263,68 @@ def _screen_chunk(reads, ref_int, ctype, *, haploid: bool,
     blocked = ((is_del_g[None, None, :] & (r[..., 4:5] < 3)) |
                (is_ins_g[None, None, :] & (r[..., 5:6] < 3)))
     like_alt = jnp.where(is_ref | blocked, -jnp.inf, like).max(-1)
-    margin = like_ref - like_alt                    # (S, I)
-    samp_easy = margin > jnp.float32(2.3 + BAND)
+    like_any = jnp.where(is_ref, -jnp.inf, like).max(-1)
+    return like_ref - like_alt, like_ref - like_any
 
+
+def pass1_margins_np(reads, ref_int, *, haploid: bool):
+    """float64 NumPy evaluation of pass1_margins' algebra (the plain
+    reference its f32 error is measured against)."""
+    from scipy.special import gammaln
+
+    max_gen = NO_ALLELES if haploid else MAX_GEN
+    ta, tota, _ = _tables(haploid)
+    fact = _factln_table(int(tota.max()) + 1)
+    a1 = fact[tota - 1] - fact[ta - 1].sum(axis=3)        # float64
+    r = np.asarray(reads).astype(np.int64)
+    tot = r[..., :5].sum(-1)
+    sc_idx = np.clip(np.minimum(tot, 100), 10, 100) - 10
+    ref_b = np.minimum(np.asarray(ref_int).astype(np.int64), 3)[:, None]
+    ta_si = ta[sc_idx, ref_b]                             # (S, I, G, 6)
+    like = (a1[sc_idx, ref_b]
+            + gammaln(ta_si + r[:, :, None, :]).sum(-1)
+            - gammaln(tota[sc_idx, ref_b] + (tot + r[..., 5])[..., None]))
+    g = np.arange(max_gen)
+    is_ref = g[None, None, :] == ref_b[..., None]
+    like_ref = np.where(is_ref, like, -np.inf).max(-1)
+    blocked = ((((g == 4) | (g == 12))[None, None, :] & (r[..., 4:5] < 3))
+               | (((g == 5) | (g == 13))[None, None, :]
+                  & (r[..., 5:6] < 3)))
+    like_alt = np.where(is_ref | blocked, -np.inf, like).max(-1)
+    like_any = np.where(is_ref, -np.inf, like).max(-1)
+    return like_ref - like_alt, like_ref - like_any
+
+
+def _screen_chunk(reads, ref_int, ctype, *, haploid: bool,
+                  ta, tota, a1):
+    """codes (S,) uint8 for one (S, I, 6) uint16 chunk.  Pure jax."""
+    import jax.numpy as jnp
+
+    min_depth = 1 if haploid else 2
+    indiv = reads.shape[1]
+
+    r = reads.astype(jnp.int32)                     # (S, I, 6)
+    tot = r[..., :5].sum(-1)                        # (S, I) excl. Ins
+    active = tot > min_depth
+    ref_raw = ref_int.astype(jnp.int32)[:, None]    # (S, 1)
+
+    # ---- bad-base gates (pecaller.c:1261-1304), exact integer logic ----
+    sum_tot = tot.sum(-1, dtype=jnp.int32)          # (S,) < 2**31 safe
+    cnt8 = (tot >= 8).sum(-1)                       # (S,)
+    CHRY = 2
+    bad = (sum_tot < 8 * indiv) | ((2 * cnt8 < indiv) & (ctype != CHRY))
+
+    # ---- pass-1 likelihood margins (f32) ----
+    margin, margin_any = pass1_margins(reads, ref_int, haploid=haploid,
+                                       ta=ta, tota=tota, a1=a1)
+    samp_easy = margin > jnp.float32(2.3 + BAND)
     if indiv >= 4:
         # with >=4 samples the EM loop continues whenever any sample's
         # pass-1 argmax (over ALL genotypes, ungated:
         # pecaller.c:2484-2486) differs from the final call, so EASY
         # additionally requires the ungated argmax to be the ref
         # genotype by more than the f32 error band.
-        like_any = jnp.where(is_ref, -jnp.inf, like).max(-1)
-        samp_easy &= (like_ref - like_any) > jnp.float32(BAND)
+        samp_easy &= margin_any > jnp.float32(BAND)
 
     samp_easy = (~active) | samp_easy
     depth_ok = ((tot + r[..., 5]) <= DEPTH_GATE).all(-1)
@@ -301,12 +339,39 @@ def _screen_chunk(reads, ref_int, ctype, *, haploid: bool,
     return codes
 
 
+@functools.lru_cache(maxsize=8)
+def _screen_programs(indiv: int, haploid: bool, mesh):
+    """The jitted phase-1 and phase-0 programs, one pair per process and
+    configuration, so repeated run_caller calls do not retrace them."""
+    import jax
+    ta, tota, a1 = _tables(haploid)
+    f1 = functools.partial(
+        _screen_chunk, haploid=haploid, ta=ta, tota=tota, a1=a1)
+    f0 = functools.partial(
+        _phase0_chunk, haploid=haploid, indiv=indiv,
+        ptab=_phase0_tables(haploid))
+    if mesh is None:
+        return jax.jit(f1), jax.jit(f0)
+    # sites shard over every mesh device (the screen is embarrassingly
+    # parallel per site); chunk buckets are powers of two >= 2^10 so
+    # they divide any 2^k-device mesh
+    from ..parallel.mesh import shard_map
+    from jax.sharding import PartitionSpec as P
+    axes = tuple(mesh.axis_names)
+
+    def wrap(f):
+        return jax.jit(shard_map(
+            f, mesh=mesh, in_specs=(P(axes, None, None), P(axes), P(axes)),
+            out_specs=P(axes), check_vma=False))
+    return wrap(f1), wrap(f0)
+
+
 class CallerScreen:
     """Chunked, jitted site screen.  Call with host numpy arrays.
 
     Chunks are large (up to 2**18 sites, scaled down with cohort size to
-    bound the (S, I, 14, 6) f32 working set) so the per-dispatch device
-    RPC latency amortizes; short inputs pad up to power-of-two buckets
+    bound the (S, I, 14, 6) f32 working set) so the per-dispatch
+    latency amortizes; short inputs pad up to power-of-two buckets
     so only a handful of shapes ever compile.
     """
 
@@ -314,42 +379,20 @@ class CallerScreen:
 
     def __init__(self, indiv: int, haploid: bool, chunk: int | None = None,
                  mesh=None):
-        import jax
         from ..utils import enable_compilation_cache
         enable_compilation_cache()
         self.indiv = indiv
         self.haploid = haploid
+        # sites each device program classified (phase 0 / phase 1)
+        self.sites_phase0 = 0
+        self.sites_phase1 = 0
         if chunk is None or chunk <= 8192:
             # ~ (1<<21) site*samples per dispatch, pow2, within [2^13,2^18]
             c = (1 << 21) // max(indiv, 1)
             c = 1 << (c.bit_length() - 1)
             chunk = max(1 << 13, min(1 << 18, c))
         self.chunk = chunk
-        ta, tota, a1 = _tables(haploid)
-        f1 = functools.partial(
-            _screen_chunk, haploid=haploid, ta=ta, tota=tota, a1=a1)
-        f0 = functools.partial(
-            _phase0_chunk, haploid=haploid, indiv=indiv,
-            ptab=_phase0_tables(haploid))
-        if mesh is not None:
-            # sites shard over every mesh device (the screen is
-            # embarrassingly parallel per site); chunk buckets are
-            # powers of two >= 2^10 so they divide any 2^k-device mesh
-            from ..parallel.mesh import shard_map
-            from jax.sharding import PartitionSpec as P
-            axes = tuple(mesh.axis_names)
-
-            def wrap(f):
-                sm = shard_map(
-                    f, mesh=mesh,
-                    in_specs=(P(axes, None, None), P(axes), P(axes)),
-                    out_specs=P(axes), check_vma=False)
-                return jax.jit(sm)
-            self._fn = wrap(f1)
-            self._fn0 = wrap(f0)
-        else:
-            self._fn = jax.jit(f1)
-            self._fn0 = jax.jit(f0)
+        self._fn, self._fn0 = _screen_programs(indiv, haploid, mesh)
 
     def _bucket(self, m: int) -> int:
         b = self.MIN_CHUNK
@@ -387,6 +430,7 @@ class CallerScreen:
         dispatched async (jax dispatch does not block) and fetched
         afterwards, so device compute overlaps host slicing/fetches."""
         n = len(ref_int)
+        self.sites_phase0 += n
         out = np.empty(n, dtype=np.uint8)
         pend = []
         lo = 0
@@ -412,6 +456,7 @@ class CallerScreen:
         the host native phase-0 in native/screen.c) left UNRES.
         Returns EASY/BAD/HARD codes."""
         n = len(ref_int)
+        self.sites_phase1 += n
         out = np.empty(n, dtype=np.uint8)
         rd1 = np.ascontiguousarray(reads)
         ri1 = np.ascontiguousarray(ref_int)

@@ -4,7 +4,7 @@
 reference binary/script it replaces:
 
   index_genome      stdin answer-file protocol (index_genome_whole)
-  pemapper          pemapper.c CLI (plus --device for the TPU path)
+  pemapper          pemapper.c CLI (plus --device for the GPU path)
   pemapper_tsw      pemapper_tsw.c CLI (trimming + output groups)
   pecaller          pecaller.c CLI
   pecall_merger     pecall_merger.c CLI

@@ -1,15 +1,14 @@
 """1-mismatch-closed inverted seed index ("nbr index").
 
-TPU-first replacement for the per-probe neighborhood expansion: instead
+Device-first replacement for the per-probe neighborhood expansion: instead
 of probing all 49 variant keys of a read segment against the exact-key
 CSR (the reference's fill_mers loop, pemapper.c:1969-2003), we invert
 the relation offline.  For every key v in the Hamming-1 closure of the
 genome's 16-mer set, the index stores the union of the position lists of
 all exact keys within distance 1 of v, merged ascending.  A segment
 probe then costs ONE rank lookup + one short contiguous position gather,
-instead of 49 presence probes + a 392-wide merge/sort (which profiling
-showed dominates the TPU seed stage: scatter-based compaction ~150 ms +
-top_k ~21 ms per batch-end).
+instead of 49 presence probes + a 392-wide merge/sort (scatter-based
+compaction plus a top_k per read end).
 
 Semantics are exactly the reference's: position p (with exact 16-mer
 k_p) is a candidate for probe v iff Hamming(v, k_p) <= 1, and candidates

@@ -1,4 +1,4 @@
-"""TPU-backed mapping engine: the host seed/chain/decision scaffolding of
+"""Device-backed mapping engine: the host seed/chain/decision scaffolding of
 MapperEngine with the Smith-Waterman score + traceback stages and the
 pileup accumulation moved onto the device (ops/sw.py kernels).
 

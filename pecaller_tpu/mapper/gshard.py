@@ -1,5 +1,5 @@
-"""Genome-sharded octile mapping engine (docs/SCALING.md, VERDICT r4
-item 2): mm10/hg38-scale device seeding over a mesh ``genome`` axis.
+"""Genome-sharded octile mapping engine (docs/SCALING.md): mm10/hg38-scale
+device seeding over a mesh ``genome`` axis.
 
 Each shard holds an octile index + genome slice in LOCAL coordinates
 (index/shard.py); one shard_map program runs the full fused pipeline

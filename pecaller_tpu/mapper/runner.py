@@ -45,7 +45,7 @@ class MapperConfig:
     max_reads: int = 2 * 10**9
     nthreads: int = 2
     batch_size: int = 20000
-    device: bool = False      # True: SW/traceback/pileup on TPU (ops/sw.py)
+    device: bool = False      # True: the fused mapping step on the device
     # pemapper_tsw extensions (pemapper_tsw.c): fixed trimming applied to
     # every read, and optional per-file output-group basenames that flush
     # and reset the pileup between groups (dump_output :848-962)
@@ -185,9 +185,9 @@ def run_mapper(cfg: MapperConfig) -> MapperEngine:
 
     mt = getattr(eng, "mesh_timing", None)
     if mt and mt["batches"]:
-        # sharded-path overhead accounting (VERDICT r3 item 6): host
-        # shard-staging + result-fetch walls per batch — the measurable
-        # part of the >=80% 2-host scaling-efficiency claim
+        # sharded-path overhead accounting: host shard-staging +
+        # result-fetch walls per batch — the measurable part of the
+        # >=80% scaling-efficiency target
         event(_log, "mesh_overhead", n_shards=eng._n_sh,
               batches=mt["batches"],
               dispatch_ms_per_batch=round(

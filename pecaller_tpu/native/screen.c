@@ -9,7 +9,7 @@
  * byte per sample, so it runs at memory bandwidth and — unlike the
  * device path — moves zero bytes over the host<->device link.  The
  * transcendental phase-1 screen and the configuration beam stay on
- * the TPU; only this byte-gather lives here.  Fused into the same
+ * the device; only this byte-gather lives here.  Fused into the same
  * pass over the window: the .dist coverage statistics
  * (pecaller.c:1098-1131) and the EASY-site call/active outputs, which
  * otherwise each cost another full sweep of the (sites, indiv, 6)

@@ -1,8 +1,8 @@
 /* Exact affine-gap glocal Smith-Waterman, float64, matching the reference
  * mapper's DP bit-for-bit (recurrences per pemapper.c:1694-1748, boundary
  * conditions per init_penalty_matrices :2050-2095, backtrack semantics per
- * :1752-1965).  This is the parity/oracle engine; the TPU int32 kernel in
- * ops/sw.py is the production path.
+ * :1752-1965).  This is the parity/oracle engine; the int32 device DP
+ * (ops/sw2.py, ops/sw_cuda.cu) is the production path.
  *
  * Written from the algorithm spec, not copied: plane 0 = diagonal,
  * plane 1 = vertical (ref gap / deletion), plane 2 = horizontal

@@ -1,4 +1,4 @@
-"""Device Smith-Waterman: batched affine-gap glocal DP on TPU.
+"""Device Smith-Waterman: batched affine-gap glocal DP in XLA.
 
 Production counterpart of the float64 oracle in native/swexact.c.  Scores
 are exact rationals scaled by 36 (match +36, mismatch -12, open 72,
@@ -6,7 +6,7 @@ extend 1) so the DP is integer-exact in int32 — no FP tie noise.  The
 horizontal (read-gap) plane's within-row recursion is solved by the
 cummax transform  z[j] = max(z[j-1], S0[j-1] - open + j*ext)  which is
 exact over the integers, turning the row update into pure vector ops:
-one lax.scan step per reference row keeps everything on the VPU.
+one lax.scan step per reference row.
 
 The traceback variant re-runs the DP for winner alignments emitting
 packed per-cell decision bits, then a bounded fori_loop walks the path
@@ -81,8 +81,7 @@ def sw_align_device(refs, blens, reads, rlens, bisulfite: bool = False,
     The scan iterates over a transposed (N, B) ref so each step consumes
     a contiguous xs row (no per-row dynamic slices), and the per-row
     last-read-column extraction is a one-hot masked max (a lane
-    reduction) rather than a per-element gather — gathers are the
-    dominant cost of naive XLA-TPU DP scans.
+    reduction) rather than a per-element gather.
     """
     B, N = refs.shape
     M = reads.shape[1]
@@ -133,7 +132,7 @@ def sw_traceback_device(refs, blens, reads, rlens, bt_k, bt_i,
     we pre-shift those into ONE combined byte stored at (i, j), so each
     walk step performs a single gather; read-base event kinds are
     resolved after the walk with one vectorized take_along_axis instead
-    of a per-step gather.  (Gather count dominates walk cost on TPU.)
+    of a per-step gather.
 
     Returns (ev_pos (B, T) int32 ref-window row of each consuming step or
     -1, ev_kind (B, T) int8, ins_j (B, T) int16 read-slice start for

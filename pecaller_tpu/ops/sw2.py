@@ -4,9 +4,8 @@ Second-generation device SW path.  Differences from ops/sw.py:
 
 * Bases travel as 3-state "xcodes" (0-3 = A/C/G/T, 4 = N wildcard)
   instead of ASCII chars, so genome and reads can be 2-bit packed for
-  transfer and gathered as uint32 words (profiling: TPU gathers cost
-  ~8 ns/ELEMENT regardless of width, so byte-wise window gathers were
-  ~21 ms/batch-end; word-wise are ~2 ms).  Reads or windows containing
+  transfer and gathered as uint32 words (16x fewer gathered elements
+  than byte-wise window gathers).  Reads or windows containing
   chars outside {A,C,G,T,N} are routed to the exact host engine by the
   caller (the reference compares raw bytes, pemapper.c:2006-2048, so
   exotic IUPAC letters can't be represented in 3 states).
@@ -15,8 +14,8 @@ Second-generation device SW path.  Differences from ops/sw.py:
   exactly one reference row per iteration (a diagonal or vertical step),
   with any horizontal (insertion) run resolved in closed form inside the
   iteration via a prefix-max over the decision-bit row.  n_rows
-  iterations bound the whole walk — no per-step scalar loop (the XLA
-  step-walk cost ~130 ms/batch in round 1), and events land ROW-INDEXED
+  iterations bound the whole walk — no per-step scalar loop (the
+  round-1 step walk of ops/sw.py), and events land ROW-INDEXED
   (slot r holds the event of ref window row r), which is what the
   pileup scatter wants.
 

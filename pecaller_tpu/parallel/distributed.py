@@ -6,16 +6,17 @@ partitioning).
 Two levels:
 
 * **In-core**: a global Mesh spanning all hosts' devices; the mapping /
-  calling steps from parallel.mesh shard over it, with psum_scatter
-  pileup reduction riding ICI within a slice and DCN across slices.
+  calling steps from parallel.mesh shard over it; collectives run over
+  the cards' interconnect within a host and the network across hosts.
 * **File-level**: fastq (pairs) and caller site intervals are partitioned
   deterministically across processes (round-robin by index), preserving
   the reference's file-format contract so partial artifacts merge with
   the standard cohort tools.
 
-Single-chip sandboxes can exercise the full code path with
-``n_processes=1``; the driver's dryrun validates the sharded step on a
-virtual multi-device CPU mesh.
+One process drives the cards it sees; with several processes on one
+host, each process must see exactly one card (``CUDA_VISIBLE_DEVICES``),
+because a JAX process reserves most of a card's memory when it starts.
+``n_processes=1`` exercises the full code path in one process.
 """
 
 from __future__ import annotations

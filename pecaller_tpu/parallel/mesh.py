@@ -7,7 +7,7 @@ device-mesh programs:
 * mapping: reads are the data axis — each shard runs the SW batch on its
   reads and produces a partial pileup; partials are combined with
   psum_scatter over the ``genome`` axis so the final pileup lands sharded
-  over space (the ICI-friendly reduce+shard pattern).
+  over space (a reduce-scatter).
 * calling: sites are embarrassingly parallel — shard the site batch and
   run the per-site model locally, no collectives needed beyond the final
   gather.
@@ -21,18 +21,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:                                    # JAX >= 0.8: check_rep -> check_vma
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, *, mesh, in_specs, out_specs, check_vma=False):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_vma=check_vma)
-except ImportError:                     # pragma: no cover - older JAX
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, *, mesh, in_specs, out_specs, check_vma=False):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=check_vma)
+from jax import shard_map
 
 from ..ops import sw as dsw
 
@@ -67,7 +56,6 @@ def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False):
                                     (ins_j >= 0).reshape(-1),
                                     genome_size=gs_pad)
         # reduce partial pileups across every shard; land genome-sharded
-        # (reduce_scatter over ICI)
         counts = jax.lax.psum_scatter(
             counts.reshape(n_total, gs_pad // n_total, 6),
             axes, scatter_dimension=0, tiled=False)
@@ -108,8 +96,8 @@ def sharded_fused_step2(mesh: Mesh, dnbr, *, paired: bool,
     runs the complete seed→chain→SW→decide→traceback pipeline on its
     B/n_shards pairs and accumulates into its own pileup partial row of
     a (n_shards, genome_size*6) tensor; the per-run reduction over
-    shards happens once at pileup download (psum would burn ICI every
-    batch for a once-per-run artifact).
+    shards happens once at pileup download (a psum every batch would
+    move the pileup between cards for a once-per-run artifact).
 
     Returns (step, n_shards).  Step signature matches the single-chip
     fused step except every per-batch array carries a leading

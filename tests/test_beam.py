@@ -1,7 +1,7 @@
 """Device joint-configuration beam (caller/device_beam.py) vs the exact
 native engine: the config-set-proposing f32 beam + f64 finisher must
 reproduce the native outputs BITWISE on every unflagged site, across a
-large adversarial fuzz (VERDICT r3 item 4: fuzzed call/posterior
+large adversarial fuzz (fuzzed call/posterior
 agreement on >= 1e5 sites)."""
 
 import ctypes

@@ -1,5 +1,5 @@
 """Config-3 (chr21-scale, 3-sample) pipeline in CI-sized form
-(VERDICT r3 item 5): index -> v2.5 quartered-key device mapping ->
+: index -> v2.5 quartered-key device mapping ->
 caller -> snplist -> merger -> indel substitution -> VCF, end to end on
 a multi-contig genome, gated on byte parity against the reference
 binaries from the pileups onward (mapping parity itself is gated by the

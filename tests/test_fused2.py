@@ -57,7 +57,7 @@ def test_fused2_matches_oracle(data):
 
     # round 5: FULL byte equality — walk/argmax/decide exact-score ties
     # are detected on device and re-resolved with the bit-exact f64
-    # native walk (VERDICT r4 item 7)
+    # native walk
     p_ref = e_ref.final_pileup().astype(np.int64)
     p_fus = e_fus.final_pileup().astype(np.int64)
     assert np.array_equal(p_ref, p_fus)

@@ -7,7 +7,7 @@ codes, positions, stats, pileup, and insertion records — the sharding
 mechanics (local coordinates, boundary-overlap ownership, pmax chain
 ratchet, gathered decide, owner-local traceback) must be invisible in
 the outputs.  Scaled-down genome; the mechanics are the real ones
-(VERDICT r4 item 2)."""
+"""
 
 import numpy as np
 import pytest

@@ -58,7 +58,7 @@ def test_seq_sdx_mdx_idx_match(small_golden):
 
 def test_chunked_scan_equivalence(tmp_path):
     """The bounded-chunk contig scan must produce identical artifacts to
-    a whole-contig scan (hg38-scale memory envelope, VERDICT r2 item 9)."""
+    a whole-contig scan (hg38-scale memory envelope)."""
     rng = np.random.default_rng(3)
     names, seqs = make_genome(rng, [300000, 50000],
                               n_blocks=[(0, 1000, 25), (0, 65530, 40)])

@@ -37,8 +37,8 @@ def test_v2_sharded_matches_single():
 
 def test_run_mapper_sharded_artifacts_match_single(tmp_path):
     """run_mapper with the auto-selected 8-device mesh must write
-    byte-identical artifacts to the single-device fused path (VERDICT r2
-    item 4: the mesh wired into production)."""
+    byte-identical artifacts to the single-device fused path (the mesh
+    wired into production)."""
     import gzip
     import jax
     if len(jax.devices()) < 8:

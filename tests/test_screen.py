@@ -113,7 +113,7 @@ def test_screen_adversarial_boundaries(tmp_path):
     sweeping the alt count at every depth), the DEPTH_GATE f32-error
     gate, the phase-0 TMAX/CMAX table ceilings, and Ins-read
     ineligibility — byte parity vs the pure native path at each
-    (VERDICT r3 weak item 6)."""
+   ."""
     rng = np.random.default_rng(1234)
     d = str(tmp_path / "work")
     os.makedirs(d)

@@ -1,6 +1,5 @@
 """sw2 (code-based SW + row-sync traceback) equivalence vs the round-1
-char-based kernels, and Pallas-kernel (interpret mode) equivalence vs
-sw2."""
+char-based kernels."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -80,30 +79,3 @@ def test_sw2_matches_sw_chars(bis):
         newins = sorted((r, int(ij[b, r]), int(il[b, r]))
                         for r in range(ek.shape[1]) if ij[b, r] >= 0)
         assert oldins == newins, b
-
-
-@pytest.mark.parametrize("bis", [False])
-def test_pallas2_interpret_matches_sw2(bis):
-    from pecaller_tpu.ops.sw_pallas2 import (sw_align_x_pallas,
-                                             sw_tb_rows_pallas)
-    rng = np.random.default_rng(12)
-    refs, blens, reads, rlens = _mk(rng, 256, 64, 48, 17, 41)
-    rx, dx = jnp.asarray(CODE[refs]), jnp.asarray(CODE[reads])
-    s1, k1, i1, t1 = sw2.sw_align_x(rx, jnp.asarray(blens), dx,
-                                    jnp.asarray(rlens), bisulfite=bis,
-                                    n_rows=64)
-    s2, k2, i2, t2 = sw_align_x_pallas(rx, jnp.asarray(blens), dx,
-                                       jnp.asarray(rlens), bisulfite=bis,
-                                       n_rows=64, interpret=True)
-    assert np.array_equal(np.asarray(s1), np.asarray(s2))
-    assert np.array_equal(np.asarray(k1), np.asarray(k2))
-    assert np.array_equal(np.asarray(i1), np.asarray(i2))
-    assert np.array_equal(np.asarray(t1), np.asarray(t2))
-    a = [np.asarray(x) for x in sw2.sw_traceback_rows(
-        rx, jnp.asarray(blens), dx, jnp.asarray(rlens), k1, i1,
-        bisulfite=bis, n_rows=64)]
-    b = [np.asarray(x) for x in sw_tb_rows_pallas(
-        rx, jnp.asarray(blens), dx, jnp.asarray(rlens), k1, i1,
-        bisulfite=bis, n_rows=64, interpret=True)]
-    for x, y in zip(a, b):
-        assert np.array_equal(x, y)
